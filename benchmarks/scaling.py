@@ -1,9 +1,10 @@
-"""Multi-chip scaling benchmark (BASELINE.md: ≥85% rays/s efficiency at
-1 chip → 1 host → N hosts).
+"""Multi-device scaling benchmark (BASELINE.md: ≥85% rays/s efficiency
+from one card to the four cards of one host).
 
 Measures the data-parallel sharded renderer at 1..N devices on whatever
-devices exist (real TPU slice, or CPU virtual devices for harness
-validation — pass --cpu N).  Reports a JSON table of rays/s and scaling
+devices exist (the GPUs of one host, or CPU virtual devices for harness
+validation — pass --cpu N).  Writes benchmarks/scaling_results.json
+(not tracked).  Reports a JSON table of rays/s and scaling
 efficiency vs the single-device run.
 
 Usage::
@@ -85,13 +86,13 @@ def main() -> None:
     artifact = {"config": vars(args), "rows": rows}
     if jax.default_backend() == "cpu":
         # virtual CPU devices share host cores: the "scaling" measured
-        # here is host contention, not ICI — the efficiency column is
+        # here is host contention, not the interconnect — the column is
         # meaningless on this backend (VERDICT r2 weak #5 / r3 weak #5)
         artifact["caveat"] = (
             "measured on VIRTUAL CPU devices sharing one host's cores; "
-            "scaling_efficiency reflects host contention, not ICI — only "
-            "correctness (sharded == single-device) is meaningful here. "
-            "Re-run on a real multi-chip TPU slice for efficiency numbers.")
+            "scaling_efficiency reflects host contention, not the "
+            "interconnect — only correctness (sharded == single-device) "
+            "is meaningful here. Re-run on real GPUs for efficiency.")
     with open(os.path.join(os.path.dirname(__file__), "scaling_results.json"),
               "w") as f:
         json.dump(artifact, f, indent=2)

@@ -1,13 +1,13 @@
-"""fypraytracer_tpu — a TPU-native differentiable path-tracing framework.
+"""fypraytracer_tpu — a differentiable path-tracing framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the reference
+A ground-up JAX/XLA re-design of the capabilities of the reference
 CUDA path tracer (Savasstion/FYPRayTracer): nine ray-tracing sampling
 techniques (brute force, uniform / cosine hemisphere, GGX, combined BRDF,
 light-tree light sampling, NEE+MIS, ReSTIR DI, ReSTIR GI) benchmarked
 against each other on shared scenes — plus differentiability, multi-chip
 sharding, and a headless benchmark harness the reference lacks.
 
-Architecture (TPU-first, not a port):
+Architecture (a redesign, not a port):
   * SoA everywhere — the scene is a pytree of dense ``jnp`` arrays.
   * Wavefront integrators — ray batches processed by vectorized stages
     under ``jit``; bounce loops are ``lax`` control flow with masked lanes

@@ -5,7 +5,7 @@ three axes with a median-split fallback (``BVH.cpp:65-81,146-309``), per-mesh
 BLAS over triangles (Mesh.cpp:148-171) and a scene TLAS over mesh AABBs
 (Scene.cpp:111-126).
 
-The *output layout* is TPU-native and deliberately different from the
+The *output layout* is flat and deliberately different from the
 reference's child-pointer nodes (BVH.cuh:27-69): nodes are emitted in
 depth-first preorder with **miss/skip links**, so device traversal needs no
 per-ray stack (the reference burns 256+1024-entry stacks per thread,

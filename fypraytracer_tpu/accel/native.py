@@ -36,9 +36,13 @@ def _load():
     try:
         if (not os.path.exists(_SO)
                 or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
+            # build beside the target, then rename: concurrent processes
+            # (parallel test workers) never load a half-written library
+            tmp = f"{_SO}.{os.getpid()}.tmp"
             subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-o", _SO, _SRC],
+                ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
                 check=True, capture_output=True, timeout=300)
+            os.replace(tmp, _SO)
         lib = ctypes.CDLL(_SO)
         lib.build_scene_bvh.restype = ctypes.c_int
         lib.build_scene_bvh.argtypes = [

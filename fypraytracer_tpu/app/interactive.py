@@ -3,7 +3,7 @@
 The reference couples rendering to a Vulkan/ImGui window (WalnutApp.cpp:
 535-756): fly camera (Camera::OnUpdate), live material/mesh/settings
 panels flushed through SceneManager, accumulation reset on edits, image
-save.  A TPU rig is headless, so this module provides the same loop as a
+save.  An accelerator host is headless, so this module provides the same loop as a
 line-oriented command REPL (stdin/script-driven, also usable from
 notebooks via :class:`InteractiveSession`): every reference panel maps to
 a command, edits flow through SceneManager's incremental rebuilds, and a

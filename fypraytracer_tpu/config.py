@@ -1,6 +1,6 @@
 """Runtime configuration.
 
-TPU-native replacement for the reference's single mutable struct
+Immutable replacement for the reference's single mutable struct
 (``RenderingSettings.h:5-22``) that is passed by value into every CUDA
 kernel, plus the technique enum (``SamplingTechniqueEnum.h:4-17``).
 
@@ -61,8 +61,10 @@ class RenderSettings:
     temporal_history_limit: int = 2
     spatial_neighbors: int = 5
     spatial_radius: int = 30
-    # tracer backend: 'auto' picks dense O(B·T) VPU math for small scenes,
-    # the stackless BVH walk for large ones (ops/dense.py crossover note)
+    # tracer: 'auto' picks the dense O(B·T) trace for small scenes (the
+    # Triton kernel on CUDA, XLA elsewhere) and the stackless BVH walk for
+    # large ones (ops/dense.py::pick_tracer); 'pallas' | 'dense' | 'bvh'
+    # force one
     tracer: str = "auto"
 
     def replace(self, **kw) -> "RenderSettings":

@@ -5,7 +5,7 @@ glm right-handed ``perspectiveFov`` with [-1, 1] clip depth
 (Camera.cpp:123-128) and ``lookAt`` with world up (0,1,0)
 (Camera.cpp:130-134).
 
-One deliberate TPU-first departure: the reference precomputes a W×H
+One deliberate departure: the reference precomputes a W×H
 world-space ray-direction buffer on the host every time the camera moves
 and uploads it per frame (Camera.cpp:136-153, Camera_GPU.cu:4-60).  Here
 ray directions are computed *inside the jitted render step* from the two

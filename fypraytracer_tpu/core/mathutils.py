@@ -3,7 +3,7 @@
 Vectorized, branch-free re-implementations of the reference's device math
 (``MathUtils.cuh``).  Every function is written against the array API
 shared by ``numpy`` and ``jax.numpy`` and is therefore used by BOTH the
-CPU oracle renderer and the jitted TPU wavefront — formula bugs cannot
+CPU oracle renderer and the jitted device wavefront — formula bugs cannot
 hide between the two.  Correctness of the formulas themselves is pinned by
 analytic tests (PDF normalization, sample/pdf Monte-Carlo consistency,
 white-furnace) in ``tests/test_sampling.py``.
@@ -163,7 +163,6 @@ def ggx_sample_hemisphere(normal, view, roughness, u1, u2):
     # degenerate (pdf ~ 1e20, contribution ~ 1e-20) AND its division
     # gradient overflows f32 (d(1/x)/dθ ~ 1/x² ~ 1e40 → inf → NaN in the
     # differentiable estimators) — double-where pins both to exactly 0.
-    # Mirrored bit-identically in-kernel (megakernel.py::_ggx_sample).
     denom4 = 4.0 * v_dot_h
     valid = (n_dot_l > 0.0) & (denom4 > 1e-6) & (n_dot_h > 0.0)
     pdf = xp.where(valid, p_h / xp.where(valid, denom4, 1.0), 0.0)

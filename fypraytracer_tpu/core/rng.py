@@ -10,7 +10,7 @@ after which draws inside a path advance the key functionally.
 
 Every function here is written against the NumPy array API surface that
 ``numpy`` and ``jax.numpy`` share (``*``, ``^``, ``>>``, ``astype``), so the
-CPU oracle and the TPU path consume **bit-identical** uniform streams —
+CPU oracle and the jitted device path consume **bit-identical** uniform streams —
 the foundation of the seed-matched allclose tests (SURVEY.md §4).
 
 All state is uint32; wraparound arithmetic is exact in both backends.
@@ -30,9 +30,8 @@ _GOLDEN = np.uint32(0x9E3779B9)
 # Uniform convention: top 24 bits scaled by 2^-24 — exactly representable
 # in float32 (its mantissa width), u ∈ [0, 1).  Deviation from the
 # reference's ``(float)seed / (float)UINT32_MAX`` (MathUtils.cuh:58, which
-# can yield exactly 1.0): chosen so the same stream is reproducible inside
-# Pallas TPU kernels, where uint32→f32 casts don't lower but a 24-bit
-# int32 path does.
+# can yield exactly 1.0): a 24-bit integer is exact in float32, so the
+# stream is reproducible in any kernel that has only int32→f32 casts.
 _INV_24 = np.float32(1.0) / np.float32(16777216.0)
 
 

@@ -1,17 +1,19 @@
-"""Dense ray×triangle intersection — the small-scene fast path on TPU.
+"""Dense ray×triangle intersection — the small-scene tracer.
 
-The threaded-BVH walk (ops/traverse.py) is latency-bound on TPU: each
-``while_loop`` step is a round of HBM gathers, and the loop runs until the
-slowest ray finishes.  For small-to-medium scenes a *dense* formulation is
-far faster on a vector machine: test every ray against every triangle as
-fused (B, T) element-wise ops + a min-reduction — zero gathers, zero
-data-dependent control flow, pure VPU throughput.  This mirrors how the
+The threaded-BVH walk (ops/traverse.py) is a ``while_loop`` whose every
+step is a round of gathers for the whole ray batch, and the loop runs
+until the slowest ray finishes.  For small-to-medium scenes a *dense*
+formulation does better on a wide machine: test every ray against every
+triangle as fused ``(B, T)`` element-wise math plus a min-reduction — no
+gathers and no data-dependent control flow.  This mirrors how the
 wavefront design brief calls for masked lanes instead of divergence
 (SURVEY.md §7): here the "mask" is the full intersection matrix.
 
-Crossover: O(B·T) flops beat the gather-bound O(B·depth) walk up to tens
-of thousands of triangles (measured ~35× at Cornell-box scale); the
-renderer auto-selects by triangle count (render/renderer.py).
+Crossover: the O(B·T) work beats the O(B·depth) walk up to a triangle
+count measured on the card (``DENSE_MAX_TRIS``, PERF.md); ``pick_tracer``
+selects by triangle count and platform.  On a CUDA device the dense trace
+is the fused Pallas-Triton kernel (ops/triton_dense.py); elsewhere it is
+the XLA formulation below.
 
 Semantics identical to TraceRay: Möller–Trumbore, t > 1e-4, closest hit,
 miss sentinel -1 (Renderer.cu:460-561).
@@ -27,8 +29,11 @@ from fypraytracer_tpu.scene.types import Geometry
 
 _BIG = jnp.float32(3.0e38)
 
-# auto-tracer crossover (triangles); above this the BVH walk wins
-DENSE_MAX_TRIS = 32768
+# auto-tracer crossover (triangles), measured on an H100 with the Triton
+# kernel against the BVH walk on 1080p primary + bounce rays (PERF.md):
+# the kernel wins by 35 % at 8k and 18 % at 12k triangles, ties at
+# 16k, and loses from 20k on
+DENSE_MAX_TRIS = 16384
 
 
 def trace_rays_dense(geometry: Geometry, origins, directions, t_max=None,
@@ -38,15 +43,16 @@ def trace_rays_dense(geometry: Geometry, origins, directions, t_max=None,
     Baldwin–Weber formulation: per triangle, precompute affine rows such
     that ``t``/``u``/``v`` are affine in the homogeneous ray origin and
     direction.  Intersecting a ray chunk against all triangles is then two
-    ``(C, 4) @ (4, 3T)`` matrix products (MXU) plus ~a dozen element-wise
-    VPU ops and a min-reduction — versus ~120 elementwise ops/pair for
+    ``(C, 4) @ (4, 3T)`` matrix products plus ~a dozen element-wise
+    ops and a min-reduction — versus ~120 elementwise ops/pair for
     broadcast Möller–Trumbore.  Numerically equivalent hit classification
     (plane + barycentric tests); degenerate triangles masked at precompute
     (the reference comments its degenerate check out, Renderer.cu:518 —
     here padding/degenerates are excluded exactly).
 
     Same contract as ops.traverse.trace_rays: returns dict with ``tri``
-    (B,) i32 (-1 miss), ``t`` (-1 sentinel on miss), ``u``, ``v``.
+    (B,) i32 (-1 miss), ``t`` (-1 sentinel on miss), ``u``, ``v`` (0 on a
+    miss); the lowest triangle index wins a tie.
     Rays are processed in chunks of ``ray_chunk`` via ``lax.map`` to bound
     the (chunk, T) working set.
     """
@@ -79,8 +85,12 @@ def trace_rays_dense(geometry: Geometry, origins, directions, t_max=None,
         C = o.shape[0]
         o4 = jnp.concatenate([o, jnp.ones((C, 1), o.dtype)], axis=-1)
         d4 = jnp.concatenate([d, jnp.zeros((C, 1), d.dtype)], axis=-1)
-        O = jnp.dot(o4, W, preferred_element_type=jnp.float32)  # (C, 3T)
-        D = jnp.dot(d4, W, preferred_element_type=jnp.float32)
+        # full f32: TF32 operands would flip hit classification and the
+        # t > 1e-4 self-intersection test on thin or grazing triangles
+        O = jnp.dot(o4, W, precision=jax.lax.Precision.HIGHEST,
+                    preferred_element_type=jnp.float32)        # (C, 3T)
+        D = jnp.dot(d4, W, precision=jax.lax.Precision.HIGHEST,
+                    preferred_element_type=jnp.float32)
         o_n, o_u, o_v = O[:, :T], O[:, T:2 * T], O[:, 2 * T:]
         d_n, d_u, d_v = D[:, :T], D[:, T:2 * T], D[:, 2 * T:]
 
@@ -97,7 +107,8 @@ def trace_rays_dense(geometry: Geometry, origins, directions, t_max=None,
         found = t_best < _BIG
         return (jnp.where(found, k.astype(jnp.int32), -1),
                 jnp.where(found, t_best, -1.0),
-                u[rows, k], v[rows, k])
+                jnp.where(found, u[rows, k], 0.0),
+                jnp.where(found, v[rows, k], 0.0))
 
     tmax = (origins[:, 0] * 0.0 + _BIG) if t_max is None else jnp.asarray(t_max, jnp.float32)
 
@@ -125,29 +136,45 @@ def trace_rays_dense(geometry: Geometry, origins, directions, t_max=None,
 def pick_tracer(scene, force: str = "auto"):
     """Return a ``trace(o, d) -> tri`` closure.
 
-    ``force``: 'auto' | 'pallas' | 'dense' | 'bvh'.  Auto picks, for
-    scenes under the dense crossover: the Pallas VMEM-resident kernel on
-    TPU backends (2× the XLA dense path), the XLA dense path elsewhere
-    (Pallas compiles only for TPU; interpret mode is test-only).  Larger
-    scenes fall back to the threaded-BVH walk.
+    ``force``: 'auto' | 'pallas' | 'dense' | 'bvh'.  'auto' takes the
+    dense trace for scenes of at most ``DENSE_MAX_TRIS`` triangles and the
+    threaded-BVH walk above.  The dense trace is chosen per lowering
+    platform (``lax.platform_dependent``): the fused Triton kernel on CUDA,
+    the XLA formulation elsewhere — so one jitted renderer runs on the
+    card and, for reference runs, on the host CPU in the same process.
+    'pallas' demands the kernel and raises off a CUDA backend (there is no
+    silent interpreter fallback; interpret mode is for tests).
     """
-    import jax
-
     from fypraytracer_tpu.ops.traverse import trace_rays
 
-    n_tris = scene.geometry.tri_v.shape[0]
-    on_tpu = jax.default_backend() not in ("cpu",)
-    small = n_tris <= DENSE_MAX_TRIS
+    def dense(o, d):
+        return trace_rays_dense(scene.geometry, o, d)["tri"]
 
-    if force == "pallas" or (force == "auto" and small and on_tpu):
-        from fypraytracer_tpu.ops.pallas_dense import trace_rays_pallas
+    def kernel(o, d):
+        from fypraytracer_tpu.ops.triton_dense import trace_rays_triton
 
-        def trace(o, d):
-            return trace_rays_pallas(scene.geometry, o, d)["tri"]
-    elif force == "dense" or (force == "auto" and small):
-        def trace(o, d):
-            return trace_rays_dense(scene.geometry, o, d)["tri"]
-    else:
-        def trace(o, d):
-            return trace_rays(scene.bvh, scene.geometry, o, d)["tri"]
-    return trace
+        return trace_rays_triton(scene.geometry, o, d)["tri"]
+
+    def bvh(o, d):
+        return trace_rays(scene.bvh, scene.geometry, o, d)["tri"]
+
+    if force == "pallas":
+        if jax.default_backend() != "gpu":
+            raise ValueError(
+                "tracer='pallas' needs a CUDA device for the Triton kernel; "
+                f"the default backend is {jax.default_backend()!r}")
+        return kernel
+    if force == "dense":
+        return dense
+    if force == "bvh":
+        return bvh
+    if force != "auto":
+        raise ValueError(f"unknown tracer {force!r}")
+    if scene.geometry.tri_v.shape[0] > DENSE_MAX_TRIS:
+        return bvh
+
+    def auto(o, d):
+        # hit ids carry no gradient: keep the platform switch out of AD
+        o, d = jax.lax.stop_gradient(o), jax.lax.stop_gradient(d)
+        return jax.lax.platform_dependent(o, d, cuda=kernel, default=dense)
+    return auto

@@ -3,7 +3,7 @@
 ``hit_payload`` mirrors ``RendererGPU::ClosestHit`` (Renderer.cu:2389-2421):
 barycentric-interpolated world normal and UV, world position from ray
 equation, material id; miss lanes get t = -1 (Renderer.cu:2423 sentinel)
-and mat = -1.  Used by both the CPU oracle (numpy) and the jitted TPU path
+and mat = -1.  Used by both the CPU oracle (numpy) and the jitted device path
 (jnp) so payload semantics are defined exactly once.
 
 Gradients flow through vertex positions/normals/uvs and the ray; the

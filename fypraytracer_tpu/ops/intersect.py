@@ -1,7 +1,7 @@
 """Ray–AABB and ray–triangle intersection, vectorized over ray batches.
 
 Backend-generic (numpy / jax.numpy): the same code runs in the CPU oracle's
-linear intersector and inside the jitted TPU traversal loop.
+linear intersector and inside the jitted traversal loop.
 
 Semantics match the reference device code:
   * slab test — BVH.cuh:124-165

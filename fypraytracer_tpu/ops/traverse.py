@@ -1,4 +1,4 @@
-"""Stackless BVH traversal — the innermost hot loop, TPU-native.
+"""Stackless BVH traversal — the large-scene tracer.
 
 Replaces the reference's per-thread TLAS→BLAS stack traversal
 (``RendererGPU::TraceRay``, Renderer.cu:460-561) with a vectorized
@@ -26,7 +26,7 @@ import jax.numpy as jnp
 from fypraytracer_tpu.ops.intersect import moller_trumbore, ray_aabb
 from fypraytracer_tpu.scene.types import FlatBVH, Geometry
 
-_BIG = jnp.float32(3.0e38)
+_BIG = 3.0e38  # python float: a module-level jnp array trips shard_map mesh checks
 
 
 def trace_rays(bvh: FlatBVH, geometry: Geometry, origins, directions, t_max=None):

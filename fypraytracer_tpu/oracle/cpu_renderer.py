@@ -2,7 +2,7 @@
 
 The reference has no tests (SURVEY.md §4); this oracle substitutes for
 them.  It renders with a *linear* (no-BVH) brute-force intersector in
-NumPy, so a BVH / traversal / jit bug on the TPU path cannot also hide
+NumPy, so a BVH / traversal / jit bug on the device path cannot also hide
 here: the accelerated path must match this one at identical seeds
 (``tests/test_parity.py``), and the shared estimator math is pinned by
 analytic sampler tests.

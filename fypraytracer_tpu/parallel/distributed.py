@@ -1,11 +1,12 @@
 """Multi-host initialization + collectives helpers.
 
-The reference is strictly single-process/single-GPU (SURVEY.md §2.7); the
-TPU framework scales to pods: ``init_distributed`` wires
-``jax.distributed`` (DCN rendezvous), and the mesh helpers place the
-pixel data-parallel axis on ICI within a host before spanning hosts, so
-ReSTIR halo exchange and gradient ``psum`` ride ICI (SURVEY.md §5
-"distributed communication backend" row).
+The reference is strictly single-process/single-GPU (SURVEY.md §2.7);
+this framework scales past one host: ``init_distributed`` wires
+``jax.distributed`` (network rendezvous), and the mesh helpers place the
+pixel data-parallel axis on the cards of one host (NVLink) before
+spanning hosts, so ReSTIR halo exchange and gradient ``psum`` stay on the
+fast intra-host links (SURVEY.md §5 "distributed communication backend"
+row).
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> None:
     """Initialize multi-host JAX.  No-ops gracefully single-process.
 
-    On TPU pods the arguments are auto-detected from the environment; pass
-    them explicitly for CPU/GPU rigs.
+    Nothing detects a GPU cluster automatically: pass the coordinator
+    address (``host:port``), process count and this process's id.
     """
     if num_processes is not None and num_processes <= 1:
         return
@@ -36,7 +37,7 @@ def init_distributed(coordinator_address: str | None = None,
 
 def pixel_mesh_hosts_outer(axis: str = "px") -> Mesh:
     """1D pixel mesh ordered so consecutive shards are intra-host first
-    (ICI-contiguous), hosts outermost (DCN)."""
+    (NVLink-contiguous), hosts outermost (network)."""
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     return Mesh(np.asarray(devs), (axis,))
 

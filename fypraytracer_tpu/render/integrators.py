@@ -62,7 +62,7 @@ def fetch_albedo(scene: Scene, mat_id, uv, bounce: bool = False):
 
     ``bounce=True`` reads the prefiltered bounce mip level — the shared
     sampling policy (scene/types.py::TextureAtlas) every render path
-    follows so the wavefront, oracle, and megakernel stay bit-matched."""
+    follows so the wavefront and the oracle stay bit-matched."""
     xp = _xp(uv)
     m = xp.maximum(mat_id, 0)
     flat = scene.materials.albedo[m]

@@ -70,7 +70,7 @@ class Geometry:
 
 @_pytree_dataclass(meta=("leaf_size",))
 class FlatBVH:
-    """Stackless threaded BVH in preorder (TPU-native layout).
+    """Stackless threaded BVH in preorder (flat array layout).
 
     Semantics replace the reference's node+stack traversal
     (BVH.cuh:27-69, Renderer.cu:460-561) with skip links:
@@ -138,8 +138,8 @@ class TextureAtlas:
     correct minification — the reference samples mip 0 everywhere
     (Texture.cu:94-139, no mip chain) and aliases under minification; this
     is a documented fix, not a quirk reproduction.  ``bounce_pages`` is
-    sized to fit a Pallas kernel's VMEM/MXU fetch budget
-    (render/megakernel.py texture notes).
+    a small fixed size, so secondary fetches gather from a table that
+    stays cache-resident.
     """
 
     pages: Array  # (K, H, W, 3) f32

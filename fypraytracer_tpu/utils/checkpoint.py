@@ -4,7 +4,7 @@ The reference has no checkpointing (SURVEY.md §5): its accumulation buffer
 round-trips through host memory every frame and a crash loses the render.
 Here the full render state — accumulation buffer, frame index, ReSTIR
 reservoir/G-buffer state, camera matrices, settings — is saved with Orbax
-(the TPU-native checkpointing library) and restored into a ``Renderer``,
+(JAX's checkpointing library) and restored into a ``Renderer``,
 enabling elastic restarts of multi-hour equal-time benchmark runs
 (the reference's default budget is 120 min, WalnutApp.cpp:23).
 
@@ -26,17 +26,11 @@ from fypraytracer_tpu.config import RenderSettings, SamplingTechnique
 def _flatten_state(renderer) -> dict:
     state = {"accum": np.asarray(renderer.accum),
              "frame_index": np.int64(renderer.frame_index)}
-    # wavefront ReSTIR state pytree
-    if getattr(renderer, "aux_state", None) is not None:
-        leaves, treedef = jax.tree_util.tree_flatten(renderer.aux_state)
+    # ReSTIR reservoir/G-buffer state pytree
+    if renderer.aux_state is not None:
+        leaves = jax.tree_util.tree_leaves(renderer.aux_state)
         for i, leaf in enumerate(leaves):
             state[f"aux_{i}"] = np.asarray(leaf)
-    # megakernel ReSTIR HBM state/stage planes (MegakernelReSTIRDI.state,
-    # MegakernelReSTIRGI.state/.stage) — plain arrays
-    for name in ("state", "stage"):
-        v = getattr(renderer, name, None)
-        if v is not None and not callable(v):
-            state["mk_" + name] = np.asarray(v)
     return state
 
 
@@ -54,13 +48,9 @@ def save_checkpoint(path: str, renderer) -> None:
         np.savez(os.path.join(path, "state.npz"), **state)
 
     meta = {
-        # the renderer implementation (and its estimator options) are part
-        # of the state: a wavefront accumulation restored into a megakernel
-        # renderer has the wrong shape, and a GI checkpoint resumed with
-        # the other visibility estimator would silently blend two
-        # estimators into one accumulation buffer
-        "renderer": {"class": type(renderer).__name__,
-                     "final_vis": getattr(renderer, "final_vis", None)},
+        # the renderer class is part of the state layout; load_checkpoint
+        # refuses a checkpoint written by any other implementation
+        "renderer": {"class": type(renderer).__name__},
         "settings": {k: (int(v) if isinstance(v, SamplingTechnique) else v)
                      for k, v in dataclasses.asdict(renderer.settings).items()},
         "camera": {
@@ -77,20 +67,22 @@ def save_checkpoint(path: str, renderer) -> None:
         json.dump(meta, f, indent=2)
 
 
-def load_checkpoint(path: str, scene, renderer_cls=None):
-    """Rebuild a renderer from a checkpoint directory + compiled scene.
-
-    ``renderer_cls``: the renderer to restore into — default
-    ``render.renderer.Renderer`` (wavefront); also supports the megakernel
-    fast paths (``MegakernelRenderer`` / ``MegakernelReSTIRDI`` /
-    ``MegakernelReSTIRGI``), whose accumulation + HBM reservoir planes
-    round-trip, so a long offline megakernel render resumes exactly."""
+def load_checkpoint(path: str, scene):
+    """Rebuild a ``render.renderer.Renderer`` from a checkpoint directory
+    + compiled scene.  A checkpoint written by another renderer class (such
+    as the fused TPU kernels this package once had) raises ``ValueError``:
+    its state planes do not fit the wavefront renderer's layout."""
     import jax.numpy as jnp
 
     from fypraytracer_tpu.core.camera import Camera
     from fypraytracer_tpu.render.renderer import Renderer
 
     meta = json.load(open(os.path.join(path, "meta.json")))
+    saved_cls = meta.get("renderer", {}).get("class", Renderer.__name__)
+    if saved_cls != Renderer.__name__:
+        raise ValueError(
+            f"checkpoint at {path} was written by {saved_cls}, not "
+            f"{Renderer.__name__}; its state layout cannot be resumed")
     s = dict(meta["settings"])
     s["technique"] = SamplingTechnique(s["technique"])
     s["sky_color"] = tuple(s["sky_color"])
@@ -106,27 +98,11 @@ def load_checkpoint(path: str, scene, renderer_cls=None):
         ckpt = ocp.PyTreeCheckpointer()
         state = ckpt.restore(os.path.join(os.path.abspath(path), "state"))
 
-    r = (renderer_cls or Renderer)(scene, cam, settings)
-    saved_cls = meta.get("renderer", {}).get("class")
-    if saved_cls is not None and saved_cls != type(r).__name__:
-        raise ValueError(
-            f"checkpoint was written by {saved_cls}, not "
-            f"{type(r).__name__}: restoring across renderer "
-            "implementations mixes incompatible state layouts")
-    saved_fv = meta.get("renderer", {}).get("final_vis")
-    if saved_fv is not None and getattr(r, "final_vis", None) is not None \
-            and bool(saved_fv) != bool(r.final_vis):
-        raise ValueError(
-            f"checkpoint used final_vis={saved_fv}; resuming with "
-            f"final_vis={r.final_vis} would blend two GI estimators "
-            "into one accumulation buffer")
+    r = Renderer(scene, cam, settings)
     r.accum = jnp.asarray(state["accum"])
     r.frame_index = int(state["frame_index"])
-    if getattr(r, "aux_state", None) is not None:
+    if r.aux_state is not None:
         leaves, treedef = jax.tree_util.tree_flatten(r.aux_state)
         restored = [jnp.asarray(state[f"aux_{i}"]) for i in range(len(leaves))]
         r.aux_state = jax.tree_util.tree_unflatten(treedef, restored)
-    for name in ("state", "stage"):
-        if "mk_" + name in state:
-            setattr(r, name, jnp.asarray(state["mk_" + name]))
     return r

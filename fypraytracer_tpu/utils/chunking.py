@@ -1,11 +1,12 @@
 """Pixel-chunked execution of wavefront stages.
 
-TPU tile padding makes huge ``(B, 1)`` / ``(B, 3)`` per-ray temporaries
-expand 42-128× in HBM (lanes pad 3→128); at 1080p (2.07M rays) a single
-fused ReSTIR frame exceeds HBM.  Until the ray state moves to a
-lane-friendly SoA layout, large batches are processed in fixed-size pixel
-chunks with ``lax.map`` — per-chunk temporaries stay small while
-cross-pixel gathers still address full-image arrays through closures.
+A ReSTIR frame keeps dozens of per-ray temporaries alive at once (every
+candidate's sample, pdf and shade terms); over a whole 1080p frame (2.07M
+rays) they take many GiB of device memory.  Large batches are therefore
+processed in fixed-size pixel chunks with ``lax.map`` — per-chunk
+temporaries stay small while cross-pixel gathers still address
+full-image arrays through closures.  Whether the chunking still pays at
+1080p on the card is an open measurement (ROADMAP).
 """
 
 from __future__ import annotations

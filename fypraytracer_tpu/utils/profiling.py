@@ -7,7 +7,7 @@ The reference only has wall-clock frame timing with a running average
   * ``FrameTimer`` — the same running-average protocol;
   * ``RaysCounter`` — rays/s accounting (BASELINE.md metric);
   * ``device_trace`` — jax profiler capture producing a TensorBoard /
-    Perfetto trace of the actual TPU timeline;
+    Perfetto trace of the actual device timeline;
   * ``log_event`` — structured JSONL logging (the reference logs by
     encoding metadata into output filenames).
 """

@@ -3,6 +3,7 @@
 import json
 import os
 
+import jax
 import numpy as np
 import pytest
 
@@ -105,43 +106,6 @@ def test_cli_benchmark_two_techniques(tmp_path):
     assert all(np.isfinite(r["psnr"]) or r["mse"] == 0 for r in rows)
 
 
-def test_burst_run_protocol():
-    """_burst_run (VERDICT r3 #2): short dispatches + idle refill sleeps;
-    reports the fastest rep net of host overhead and accumulates the full
-    frame budget."""
-    import jax.numpy as jnp
-
-    from fypraytracer_tpu.app.cli import _burst_run
-
-    class FakeMK:
-        def __init__(self):
-            self.calls = []
-
-        def render_many(self, n):
-            self.calls.append(n)
-            return jnp.ones((8, 8, 3), jnp.float32)
-
-    mk = FakeMK()
-    avg, done, ms = _burst_run(mk, frames=8, burst=2, reps=2, idle=0.0)
-    assert mk.calls == [2, 2, 2, 2]          # warm + 3 timed reps
-    assert done == 8
-    assert np.isfinite(ms) and ms >= 0.0
-    assert avg.shape == (8, 8, 3)
-
-
-def test_cli_burst_requires_frames():
-    """--burst with a seconds budget must error, not silently report
-    non-burst wavefront timings as the burst protocol."""
-    import pytest
-
-    from fypraytracer_tpu.app.cli import main
-
-    with pytest.raises(SystemExit, match="frames"):
-        main(["benchmark", "--scene", "cornell-empty", "--width", "24",
-              "--height", "24", "--techniques", "cosine", "--seconds",
-              "1", "--burst", "8", "--golden-frames", "0"])
-
-
 def test_cli_benchmark_timing_only(tmp_path):
     """--golden-frames 0 skips the golden render and PSNR columns."""
     from fypraytracer_tpu.app.cli import main
@@ -200,38 +164,58 @@ def test_checkpoint_roundtrip(tmp_path):
     np.testing.assert_allclose(a, b, atol=1e-6)
 
 
-def test_checkpoint_roundtrip_megakernel_restir_gi(tmp_path):
-    """Checkpoint/resume of the megakernel FAST path: accumulation +
-    frame index + the ReSTIR HBM state/stage planes round-trip, so a
-    resumed offline render continues bit-identically (the production
-    path for long renders; VERDICT r1 checkpoint row covered only the
-    wavefront renderer)."""
+def test_checkpoint_roundtrip_restir_gi(tmp_path):
+    """ReSTIR GI checkpoint/resume: accumulation, frame index and the
+    path-sample reservoir state round-trip, so a resumed render continues
+    exactly like an uninterrupted one."""
     from fypraytracer_tpu.config import RenderSettings, SamplingTechnique
-    from fypraytracer_tpu.render.megakernel_restir_gi import MegakernelReSTIRGI
+    from fypraytracer_tpu.render.renderer import Renderer
     from fypraytracer_tpu.scene.procedural import cornell_box
     from fypraytracer_tpu.utils.checkpoint import (load_checkpoint,
                                                    save_checkpoint)
 
-    builder, cam = cornell_box(width=32, height=32, with_spheres=False)
+    builder, cam = cornell_box(width=16, height=16, with_spheres=False)
     scene = builder.compile()
     settings = RenderSettings(technique=SamplingTechnique.RESTIR_GI,
                               bounces=2, spatial_neighbors=2,
                               spatial_radius=4)
-    mk = MegakernelReSTIRGI(scene, cam, settings, interpret=True)
-    mk.render_many(8)
+    r = Renderer(scene, cam, settings)
+    r.render_many(3)
 
-    ck = tmp_path / "ckpt_mk"
-    save_checkpoint(str(ck), mk)
-    mk2 = load_checkpoint(
-        str(ck), scene,
-        renderer_cls=lambda s, c, st: MegakernelReSTIRGI(s, c, st,
-                                                         interpret=True))
-    assert mk2.frame_index == mk.frame_index
-    np.testing.assert_array_equal(np.asarray(mk2.state), np.asarray(mk.state))
+    ck = tmp_path / "ckpt_gi"
+    save_checkpoint(str(ck), r)
+    r2 = load_checkpoint(str(ck), scene)
+    assert r2.frame_index == r.frame_index
+    for x, y in zip(jax.tree_util.tree_leaves(r.aux_state),
+                    jax.tree_util.tree_leaves(r2.aux_state)):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
 
-    a = np.asarray(mk.render_many(8))
-    b = np.asarray(mk2.render_many(8))
+    a = np.asarray(r.render_many(2))
+    b = np.asarray(r2.render_many(2))
     np.testing.assert_array_equal(a, b)
+
+
+def test_checkpoint_from_removed_renderer_raises(tmp_path):
+    """A checkpoint whose meta names another renderer class cannot be
+    resumed into the wavefront renderer's state layout."""
+    from fypraytracer_tpu.config import RenderSettings, SamplingTechnique
+    from fypraytracer_tpu.render.renderer import Renderer
+    from fypraytracer_tpu.scene.procedural import cornell_box
+    from fypraytracer_tpu.utils.checkpoint import (load_checkpoint,
+                                                   save_checkpoint)
+
+    builder, cam = cornell_box(width=8, height=8, with_spheres=False)
+    scene = builder.compile()
+    r = Renderer(scene, cam, RenderSettings(
+        technique=SamplingTechnique.COSINE, bounces=1))
+    r.render_hdr()
+    ck = tmp_path / "ck"
+    save_checkpoint(str(ck), r)
+    meta = json.load(open(ck / "meta.json"))
+    meta["renderer"]["class"] = "MegakernelReSTIRGI"
+    json.dump(meta, open(ck / "meta.json", "w"))
+    with pytest.raises(ValueError, match="MegakernelReSTIRGI"):
+        load_checkpoint(str(ck), scene)
 
 
 def test_cli_render_checkpoint_resume(tmp_path):
@@ -247,8 +231,7 @@ def test_cli_render_checkpoint_resume(tmp_path):
     out_a = tmp_path / "a"
     out_b = tmp_path / "b"
     base = ["render", "--scene", "cornell", "--technique", "cosine",
-            "--width", "16", "--height", "16", "--impl", "wavefront",
-            "--bounces", "1"]
+            "--width", "16", "--height", "16", "--bounces", "1"]
     # uninterrupted 4-frame run
     cli.main(base + ["--frames", "4", "-o", str(out_a),
                      "--checkpoint-dir", str(tmp_path / "ck_a")])
@@ -264,27 +247,26 @@ def test_cli_render_checkpoint_resume(tmp_path):
     np.testing.assert_array_equal(a, b)
 
 
-def test_cli_render_checkpoint_resume_megakernel(tmp_path):
-    """Checkpointed CLI render on the megakernel fast path (interpret off
-    TPU): resumed == uninterrupted, and the checkpoint meta pins the
-    renderer implementation so a resume without --impl stays megakernel."""
+@pytest.mark.parametrize("technique", ["restir-di", "restir-gi"])
+def test_cli_render_checkpoint_resume_restir(tmp_path, technique):
+    """Checkpointed CLI render through the ReSTIR estimators: the
+    reservoir state rides along, so resumed == uninterrupted."""
     from fypraytracer_tpu.app import cli
     from fypraytracer_tpu.utils.image import load_png
 
     out_a = tmp_path / "a"
     out_b = tmp_path / "b"
-    base = ["render", "--scene", "cornell", "--technique", "cosine",
-            "--width", "32", "--height", "32", "--impl", "megakernel",
-            "--bounces", "1", "--checkpoint-every", "2"]
+    base = ["render", "--scene", "cornell-empty", "--technique", technique,
+            "--width", "16", "--height", "16", "--bounces", "1",
+            "--candidates", "2", "--neighbors", "2", "--radius", "4",
+            "--checkpoint-every", "2"]
     cli.main(base + ["--frames", "4", "-o", str(out_a),
                      "--checkpoint-dir", str(tmp_path / "ck_a")])
     ck = str(tmp_path / "ck_b")
     cli.main(base + ["--frames", "2", "-o", str(tmp_path / "scratch"),
                      "--checkpoint-dir", ck])
-    # resume WITHOUT --impl: meta must keep it on the megakernel path
-    resume = [a for a in base if a not in ("--impl", "megakernel")]
-    cli.main(resume + ["--frames", "4", "-o", str(out_b),
-                       "--checkpoint-dir", ck])
+    cli.main(base + ["--frames", "4", "-o", str(out_b),
+                     "--checkpoint-dir", ck])
 
     a = load_png(str(next(out_a.glob("*.png"))))
     b = load_png(str(next(out_b.glob("*.png"))))

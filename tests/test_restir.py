@@ -2,7 +2,7 @@
 
 ReSTIR is a resampling estimator — it must be *unbiased* against the
 plain estimators on the same scene (the reference's
-convergence-by-accumulation oracle, SURVEY.md §4.4), and the jitted TPU
+convergence-by-accumulation oracle, SURVEY.md §4.4), and the jitted device
 path must match the NumPy oracle at matched seeds.
 """
 

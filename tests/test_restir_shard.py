@@ -5,8 +5,6 @@ The single-chip reference is computed with the same in-jit ray generation
 as the sharded body (host-computed rays differ in final-ulp rounding,
 which reservoir accept decisions amplify chaotically across frames)."""
 
-import os
-
 import numpy as np
 import pytest
 
@@ -15,109 +13,76 @@ from fypraytracer_tpu.scene.procedural import cornell_box
 
 
 @pytest.mark.parametrize("n_devices", [2, 8])
-def test_sharded_megakernel_matches_single_chip(n_devices):
-    """The multi-chip FAST path (Pallas megakernel inside shard_map, one
-    pixel-row slab per device, scene replicated) must be bit-identical
-    to the single-device megakernel."""
+def test_sharded_render_matches_single_device(n_devices):
+    """Pixel-sharded cosine render (scene replicated, rows sharded) equals
+    the same frame on one device: the per-shard body is the single-device
+    wavefront and the RNG keys on the global pixel id."""
     import jax
     import jax.numpy as jnp
 
-    from fypraytracer_tpu.parallel.shard import (
-        make_pixel_mesh, sharded_megakernel_render)
-    from fypraytracer_tpu.render import megakernel as MK
+    from fypraytracer_tpu.parallel.shard import (make_pixel_mesh,
+                                                 replicate_scene,
+                                                 sharded_render)
 
-    builder, cam = cornell_box(width=64, height=64)
+    width = height = 32
+    builder, cam = cornell_box(width=width, height=height, sphere_res=(6, 10))
     scene = builder.compile()
-    settings = RenderSettings(technique=SamplingTechnique.NEE_MIS,
-                              bounces=2, samples=1,
-                              sky_color=(0.05, 0.06, 0.08))
-    cam_mats = jnp.concatenate([jnp.asarray(cam.inv_projection),
-                                jnp.asarray(cam.inv_view)], axis=0)
-    frame0 = jnp.asarray([[1]], jnp.int32)
+    settings = RenderSettings(technique=SamplingTechnique.COSINE, bounces=2,
+                              sky_color=(0.1, 0.15, 0.2))
+    ip = jnp.asarray(cam.inv_projection)
+    iv = jnp.asarray(cam.inv_view)
 
+    one = make_pixel_mesh(jax.devices()[:1])
+    ref = sharded_render(replicate_scene(scene, one), one, width, height,
+                         settings, "cosine")(ip, iv, jnp.uint32(3))
     mesh = make_pixel_mesh(jax.devices()[:n_devices])
-    render = sharded_megakernel_render(scene, mesh, 64, 64, settings,
-                                       n_frames=8, interpret=True)
-    sharded = np.asarray(render(cam_mats, frame0))
-
-    # single-device reference (unchunked)
-    mscene, _ = MK.morton_permuted_scene(scene)
-    dscene = jax.tree_util.tree_map(jnp.asarray, mscene)
-    P, AT = MK.prepare_scene_tables(dscene)
-    L, depth = MK.prepare_light_table(dscene)
-    ref = np.asarray(MK.make_megakernel(
-        64, 64, bounces=2, samples=1, sky_color=(0.05, 0.06, 0.08),
-        n_frames=8, n_tris=scene.geometry.tri_v.shape[0], sampler="nee",
-        n_light_nodes=L.shape[1], light_depth=depth, frame_group=8,
-        ray_lanes=512, interpret=True)(cam_mats, P, AT, frame0, L=L))
-    assert ref.mean() > 0.01
-    np.testing.assert_array_equal(sharded, ref)
+    got = sharded_render(replicate_scene(scene, mesh), mesh, width, height,
+                         settings, "cosine")(ip, iv, jnp.uint32(3))
+    assert got.sharding.shard_shape(got.shape)[0] == width * height // n_devices
+    ref, got = np.asarray(ref), np.asarray(got)
+    assert np.isfinite(got).all() and got.mean() > 1e-3
+    np.testing.assert_allclose(got, ref, atol=1e-5)
 
 
-def test_sharded_megakernel_sparse_big_scene():
-    """Sharded fast path composes with the big-scene sparse/HBM trace:
-    a 37k-tri scene over a 2-device mesh renders finite and non-black
-    through shard_map + chunked sparse megakernel."""
+def test_sharded_nee_train_step_big_scene():
+    """Sharded NEE train step on a scene above DENSE_MAX_TRIS (the BVH
+    walk inside shard_map): finite loss, albedo moves, and the step
+    matches the same step on one device."""
     import jax
     import jax.numpy as jnp
 
-    from fypraytracer_tpu.parallel.shard import (
-        make_pixel_mesh, sharded_megakernel_render)
+    from fypraytracer_tpu.ops.dense import DENSE_MAX_TRIS
+    from fypraytracer_tpu.parallel.shard import (make_pixel_mesh,
+                                                 make_train_step,
+                                                 replicate_scene)
     from fypraytracer_tpu.scene.procedural import stress
 
-    b, cam = stress(width=32, height=32, grid=3)
-    scene = b.compile()
-    settings = RenderSettings(technique=SamplingTechnique.COSINE,
-                              bounces=1, samples=1,
-                              sky_color=(0.05, 0.06, 0.08))
-    cam_mats = jnp.concatenate([jnp.asarray(cam.inv_projection),
-                                jnp.asarray(cam.inv_view)], axis=0)
-    mesh = make_pixel_mesh(jax.devices()[:2])
-    render = sharded_megakernel_render(scene, mesh, 32, 32, settings,
-                                       n_frames=8, interpret=True)
-    out = np.asarray(render(cam_mats, jnp.asarray([[1]], jnp.int32)))
-    assert out.shape == (1024, 3)
-    assert np.isfinite(out).all() and out.mean() > 1e-3
-
-
-@pytest.mark.skipif(
-    not os.path.isdir("/root/reference/FYPRayTracer/Assets/3D Models/Test")
-    and not os.environ.get("FYP_ASSETS"),
-    reason="room scene assets unavailable")
-def test_sharded_megakernel_room_cull_textured():
-    """Mid-size dense scenes (>= 8 intersection tiles) auto-enable the
-    in-kernel tile cull, and the room is textured — the sharded path must
-    thread the TAABB + texture tables through and match the single-device
-    textured megakernel bit-for-bit (ADVICE r4: this band crashed with a
-    pallas_call pytree mismatch and, texture-wise, silently rendered
-    flat-albedo)."""
-    import jax
-    import jax.numpy as jnp
-
-    from fypraytracer_tpu.parallel.shard import (
-        make_pixel_mesh, sharded_megakernel_render)
-    from fypraytracer_tpu.render import megakernel as MK
-    from fypraytracer_tpu.scene.procedural import room
-
-    builder, cam = room(width=64, height=64)
+    width = height = 16
+    # 2 layers of grid² spheres of 2·16·32 triangles each
+    grid = int(np.ceil(np.sqrt(DENSE_MAX_TRIS / (2 * 2 * 16 * 32)))) + 1
+    builder, cam = stress(width=width, height=height, grid=grid,
+                          sphere_res=(16, 32))
     scene = builder.compile()
-    settings = RenderSettings(technique=SamplingTechnique.NEE_MIS,
-                              bounces=2, samples=1,
+    assert scene.geometry.tri_v.shape[0] > DENSE_MAX_TRIS
+    settings = RenderSettings(technique=SamplingTechnique.NEE_MIS, bounces=1,
                               sky_color=(0.05, 0.06, 0.08))
-    cam_mats = jnp.concatenate([jnp.asarray(cam.inv_projection),
-                                jnp.asarray(cam.inv_view)], axis=0)
-    frame0 = jnp.asarray([[1]], jnp.int32)
+    ip = jnp.asarray(cam.inv_projection)
+    iv = jnp.asarray(cam.inv_view)
+    target = jnp.zeros((width * height, 3), jnp.float32)
 
-    mesh = make_pixel_mesh(jax.devices()[:2])
-    render = sharded_megakernel_render(scene, mesh, 64, 64, settings,
-                                       n_frames=8, interpret=True)
-    sharded = np.asarray(render(cam_mats, frame0))
-
-    mk = MK.MegakernelRenderer(scene, cam, settings, interpret=True)
-    mk.render_many(8)
-    ref = np.asarray(mk.accum)
-    assert ref.mean() > 0.01
-    np.testing.assert_array_equal(sharded, ref)
+    outs = []
+    for n in (1, 4):
+        mesh = make_pixel_mesh(jax.devices()[:n])
+        scene_r = replicate_scene(scene, mesh)
+        step = make_train_step(scene_r, mesh, width, height, settings,
+                               lr=1.0)
+        p, loss = step(scene_r.materials, ip, iv, jnp.uint32(1), target)
+        outs.append((np.asarray(p.albedo), float(loss)))
+    (a1, l1), (a4, l4) = outs
+    assert np.isfinite(l1) and l1 > 0.0
+    assert np.abs(a1 - np.asarray(scene.materials.albedo)).max() > 0.0
+    np.testing.assert_allclose(l4, l1, rtol=1e-4)
+    np.testing.assert_allclose(a4, a1, atol=1e-5)
 
 
 @pytest.mark.parametrize("n_devices", [2, 4, 8])
